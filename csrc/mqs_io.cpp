@@ -5,7 +5,7 @@
 // resync + checksum validation, uav_local_nav.c:1386-1427; scanlog
 // writing, :1549-1581).  The rebuild's equivalent hot host path is
 // decoding thousands of logged flights into struct-of-arrays buffers to
-// feed the TPU; this library implements it in C++ (python fallback in
+// feed the device; this library implements it in C++ (python fallback in
 // micro_quad_slam_tpu/io/native.py, equality-tested against it).
 //
 // Layouts are byte-exact with the reference:

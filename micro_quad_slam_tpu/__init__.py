@@ -1,12 +1,12 @@
-"""micro_quad_slam_tpu — TPU-native batched replay / SLAM engine.
+"""micro_quad_slam_tpu — batched replay / SLAM engine in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
+A JAX/XLA framework with the capabilities of the reference
 nano-quadcopter GPS-denied localization-and-mapping stack
 (exie1122/micro-quad-SLAM).  The reference's C inner loops (ToF beam
 extraction, Bresenham ray-casting into an int8 log-odds occupancy grid,
 EMA filtering, altitude estimation, flight state machine) are re-expressed
 as pure, jittable per-frame step functions — `lax.scan` over flight time,
-`vmap`/`pjit` over flights — plus new TPU-first capabilities: an explicit
+`vmap` and mesh sharding over flights — plus new capabilities: an explicit
 EKF (replacing ArduPilot's onboard EKF3), scan-matching + pose-graph
 Gauss-Newton SLAM, pyramidal Lucas-Kanade optical flow, and a synthetic
 swarm simulator.

@@ -12,7 +12,7 @@ FRONT, RIGHT, BACK, LEFT.
 
 This module reads/writes that exact byte layout with numpy structured
 arrays (zero-copy `np.frombuffer`), and converts to/from the struct-of-
-arrays layout the TPU pipeline consumes.
+arrays layout the device pipeline consumes.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Golden C-semantics model: a direct float32/int8 re-expression of the
 reference's perception & mapping math (SURVEY.md §2B), used as the bit-match
-oracle for the TPU kernels.
+oracle for the device kernels.
 
 Everything here is deliberately *scalar-ish numpy*: clarity and exact
 C-operation ordering over speed.  Semantics reproduced (with citations):
@@ -346,7 +346,7 @@ def golden_replay_mapping(
     mapping pipeline (call stack SURVEY.md §3.2) recomputed from logged poses.
 
     Replay policy (deterministic from the log alone; identical policy is
-    implemented by the TPU pipeline so the two bit-match):
+    implemented by the device pipeline so the two bit-match):
       * map init at the first record with finite (x, y) and an airborne
         state (the reference inits at hover XY lock, uav_local_nav.c:2187);
         origin = that record's pose.

@@ -314,29 +314,14 @@ def sim_step(state: SimState, world: World, cfg: PipelineConfig = UL_PROFILE,
         cells = synth_scan_mm(world, state.x, state.y, state.yaw, k_scan,
                               noise_mm, dropout_p, cfg)
         beams, minima = extract_beams(cells, cfg.tof)
-        # map update from the EKF pose estimate (self-localized mapping).
-        # On TPU the update runs as the per-step slab kernel
-        # (pallas_map_step — bit-identical to apply_scan_to_grid,
-        # test_map_step_matches_xla): the whole-replay resident kernels
-        # don't apply here (map->behavior feedback prevents schedule
-        # precomputation), but the slab DMA replaces XLA's batched
-        # dynamic slice/unslice, which was ~70% of the per-step cost
-        # (PERFORMANCE.md; VERDICT round-3 ask 9).
+        # map update from the EKF pose estimate (self-localized mapping)
         ex_, ey_ = ekf.mean[..., 0], ekf.mean[..., 1]
-        enabled = mapper.inited
-        if jax.default_backend() == "tpu":
-            from micro_quad_slam_tpu.ops.pallas_residentx import (
-                pallas_map_step)
-            grid = pallas_map_step(mapper.grid, beams, ex_, ey_,
-                                   state.yaw, mapper.origin_x,
-                                   mapper.origin_y, enabled, cfg, geom)
-        else:
-            grid = jax.vmap(
-                lambda gi, b, xi, yi, yawi, oxi, oyi, en:
-                apply_scan_to_grid(gi, b, xi, yi, yawi, oxi, oyi, en,
-                                   cfg.map, cfg.tof, geom)
-            )(mapper.grid, beams, ex_, ey_, state.yaw, mapper.origin_x,
-              mapper.origin_y, enabled)
+        grid = jax.vmap(
+            lambda gi, b, xi, yi, yawi, oxi, oyi, en:
+            apply_scan_to_grid(gi, b, xi, yi, yawi, oxi, oyi, en,
+                               cfg.map, cfg.tof, geom)
+        )(mapper.grid, beams, ex_, ey_, state.yaw, mapper.origin_x,
+          mapper.origin_y, mapper.inited)
         mapper = mapper._replace(grid=grid)
         return mapper, minima, ekf, cells
 

@@ -1,8 +1,8 @@
-"""Beam extraction & ToF filtering — vectorized TPU re-expression of the
+"""Beam extraction & ToF filtering — vectorized re-expression of the
 reference's per-column scan loops.
 
 The reference walks 8 rows per column keeping a running (best, second)
-pair (robust_col_dist_m, uav_local_nav.c:1320-1342).  On TPU the same
+pair (robust_col_dist_m, uav_local_nav.c:1320-1342).  On device the same
 second-smallest-valid semantics is one masked sort along the row axis:
 invalid cells (0 / 0xFFFF / <=0.02 m after the mm->m conversion) map to
 +inf, columns sort ascending, and the beam is element [1] when >=2 valid
@@ -70,7 +70,8 @@ def tof_filter_update(
     # survive into codegen), and the 1-ULP skew breaks cross-kernel
     # bit-equality of filt.  where(x == x, p, y) is value-identity on
     # non-NaN lanes (NaN lanes are overridden below) yet blocks the
-    # fadd(fmul) contraction pattern on both CPU and TPU backends.
+    # fadd(fmul) contraction pattern (bit-equality of filt with the CPU
+    # on the GPU is checked by chip_smoke.py).
     p1 = jnp.where(filt == filt, (_F32(1.0) - a) * filt, minima)
     p2 = jnp.where(minima == minima, a * minima, filt)
     blended = p1 + p2

@@ -413,8 +413,10 @@ def hybrid_scan_update(
     csel = (ex[:, None]
             == lax.broadcasted_iota(jnp.int32, (1, WC), 1)).astype(
                 jnp.float32)                               # [32, WC]
+    # HIGHEST: exact f32 sums of small integers, not TF32
     dend = lax.dot_general(rsel * d[None, :], csel,
-                           (((1,), (0,)), ((), ()))).astype(jnp.int32)
+                           (((1,), (0,)), ((), ())),
+                           precision=lax.Precision.HIGHEST).astype(jnp.int32)
 
     lo, hi = jnp.int32(cfg.lo_min), jnp.int32(cfg.lo_max)
     v1 = jnp.clip(win.astype(jnp.int32) + dfree, lo, hi)

@@ -34,12 +34,13 @@ Measurement gating mirrors the reference's flow-quality thresholds
 update (pure dead-reckoning), exactly like EKF3 rejecting a bad flow
 sample.
 
-TPU shape note: F and every H here are so sparse that all covariance
+Shape note: F and every H here are so sparse that all covariance
 algebra is EXPANDED into static shifts and rank-1/rank-2 outer products
-instead of batched 8x8 einsums — tiny [B, 8, 8] matmuls fragment XLA's
-fusion clusters inside the replay scan (the scan is latency-bound, not
-FLOP-bound), while the expanded forms fuse into a handful of elementwise
-kernels per step.  The expansion reads P by rows and columns, so
+instead of batched 8x8 einsums — tiny [B, 8, 8] matmuls can fragment
+XLA's fusion clusters inside the replay scan (the scan is latency-bound,
+not FLOP-bound), while the expanded forms fuse into a handful of
+elementwise kernels per step (re-checking this layout on the GPU is
+ROADMAP S7).  The expansion reads P by rows and columns, so
 ekf_step re-symmetrizes P once per step (f32 asymmetry otherwise
 compounds; the circle replay measurably diverged at ~frame 110).
 """
@@ -84,9 +85,9 @@ def ekf_predict(state: EkfState, dt, cfg: EkfConfig = EkfConfig()) -> EkfState:
     F = I + dt*E with E just the four (pos, vel) couplings, so
     F P F^T = P + dt*(E P + (E P)^T) + dt^2 * E P E^T evaluates as
     static row/column shifts and fused elementwise math — no batched
-    8x8 matmuls.  The per-step [B, 8, 8] einsums fragmented XLA fusion
-    clusters inside the replay scan and dominated its cost; the
-    expanded form fuses into the surrounding step body."""
+    8x8 matmuls: per-step [B, 8, 8] einsums can fragment XLA fusion
+    clusters inside the replay scan; the expanded form fuses into the
+    surrounding step body."""
     dt = jnp.asarray(dt, jnp.float32)
     mean, P = state.mean, state.cov
     d = dt[..., None]

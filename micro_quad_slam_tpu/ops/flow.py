@@ -37,10 +37,9 @@ def _bilinear_shift(img, dx, dy):
     """Sample img at (x + dx, y + dy) with bilinear interpolation and
     zero-gradient (clamped) borders.  dx, dy are scalars (traced).
 
-    TPU-first formulation: the shift is separable and global, so it is
-    two tiny one-hot-banded MATMULS (row mix @ img @ column mix) instead
-    of a gather — batched gathers with traced indices measured ~100x
-    slower on v5e and dominated the vision-flow swarm tick.  The one-hot
+    The shift is separable and global, so it is two tiny one-hot-banded
+    MATMULS (row mix @ img @ column mix) instead of a batched gather with
+    traced indices.  The one-hot
     selectors encode the same index clamping as the gather version;
     HIGHEST precision keeps the interpolation weights at full f32."""
     H, W = img.shape[-2:]

@@ -1,11 +1,10 @@
-"""Fused scan -> log-odds grid update, TPU-first.
+"""Fused scan -> log-odds grid update, as dense vectorized work.
 
 The reference's hot loop (SURVEY.md §3.2) walks 32 Bresenham rays per scan,
 mutating int8 cells one at a time with saturating log-odds updates
 (raycast_update, uav_local_nav.c:241-278; map_update_from_beams, :280-306).
-Data-dependent scatter is the one pattern TPUs dislike, so this module
-re-derives the update as dense, vectorized VPU work with *identical*
-results:
+This module re-derives the update without data-dependent scatter, as
+dense, vectorized work with *identical* results:
 
 1.  **No scatter, no bounds-break.**  The reference only casts a ray when
     BOTH the pose cell and the endpoint cell are inside the 500x500 grid
@@ -387,17 +386,15 @@ def apply_scan_to_grid_mxu(
     tof: TofConfig = TofConfig(),
     geom: GridGeom = DEFAULT_GEOM,
 ) -> jnp.ndarray:
-    """Batched fused scan update with MXU-based window IO.
+    """Batched fused scan update with matmul-based window IO.
 
     XLA lowers a batched dynamic_slice of per-quad (96, 128) sub-row
-    windows to a strided gather that dominates the whole replay step
-    (~7.5 ms/step at B=1024 on v5e — measured).  This variant reads a
-    CONTIGUOUS full-row slab (96, pcols) per quad (row-major int8: one
-    61 KB block, cheap even as a gather), then selects/merges the 128
-    window columns with one-hot bf16 matmuls — the classic TPU trick of
-    converting data movement into MXU work (one-hot products are exact
-    for the int8 value range).  Results are bit-identical to
-    vmap(apply_scan_to_grid).
+    windows to a strided gather.  This variant reads a CONTIGUOUS
+    full-row slab (96, pcols) per quad (row-major int8: one 61 KB block,
+    cheap even as a gather), then selects/merges the 128 window columns
+    with one-hot bf16 matmuls, turning data movement into matmul work
+    (one-hot products are exact for the int8 value range).  Results are
+    bit-identical to vmap(apply_scan_to_grid).
     """
     import jax as _jax
 
@@ -453,12 +450,11 @@ def apply_scan_to_grid_mxu2(
     geom: GridGeom = DEFAULT_GEOM,
 ) -> jnp.ndarray:
     """Gather-free fused scan update: BOTH window axes are selected and
-    merged with one-hot bfloat16 matmuls on the MXU.
+    merged with one-hot bfloat16 matmuls.
 
-    Measured v5e lowerings of per-quad dynamic windows are pathological
-    (vmapped dynamic_slice ~7.5 ms/step at B=1024 even with zero compute),
-    so this variant keeps the occupancy grid in bfloat16 (int8 log-odds
-    values are exact in bf16) and expresses window read as
+    Per-quad dynamic windows lower to batched gathers/scatters, so this
+    variant keeps the occupancy grid in bfloat16 (int8 log-odds values
+    are exact in bf16) and expresses window read as
     W = Ry @ G @ Cx and write-back as G += Ry^T @ dW @ Cx^T — pure batched
     matmuls with no data-dependent memory ops anywhere.  Bit-identical
     values to the XLA path (compare after int8 cast).

@@ -3,7 +3,7 @@ grid (new capability — the reference dead-reckons on the FC's EKF with no
 drift correction; BASELINE.json config 4 adds scan-matching + pose-graph
 refinement on top).
 
-TPU-first design: instead of an iterative point-to-plane ICP with
+Design: instead of an iterative point-to-plane ICP with
 data-dependent convergence, score a STATIC dense candidate lattice
 (translations x rotations around the guess) in one shot — every candidate
 evaluates all 32 beam endpoints against the grid in parallel, the argmax
@@ -12,10 +12,7 @@ Fixed shapes, no loops, vmaps over quads.
 
 Cell lookups go through one [96, 128] window slice around the guess and
 TWO one-hot matmuls per lattice ((rows @ window) * cols summed) instead
-of an advanced-indexing gather: batched gathers with traced indices
-measured ~100x slower than the equivalent one-hot matmul on v5e (same
-lesson as the vision-flow warp and the resident kernel's scatter).  Every
-candidate cell provably falls inside the window (max beam reach 4.0 m +
+of an advanced-indexing gather with traced indices.  Every candidate cell provably falls inside the window (max beam reach 4.0 m +
 search radius < window margins), and out-of-grid candidates score 0
 through the no-match row of the one-hot, identical to the masked-gather
 semantics.
@@ -26,6 +23,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -85,9 +83,7 @@ def _lattice_cells(beams, x_guess, y_guess, yaw_guess_deg, origin_x,
                    origin_y, cfg: MapConfig, tof: TofConfig,
                    n_xy: int, n_yaw: int, xy_step_m: float,
                    yaw_step_deg: float):
-    """Candidate endpoint CELLS for the (n_yaw, n_xy, n_xy) lattice —
-    the ONE index definition shared by the XLA scorer (`_score_lattice`)
-    and the pallas matcher kernel (their scores must be bit-equal).
+    """Candidate endpoint CELLS for the (n_yaw, n_xy, n_xy) lattice.
     Returns (cy [Y, 32, Ty], cx [Y, 32, Tx], iny, inx, hit [Y, 32])."""
     offs_xy = (np.arange(n_xy, dtype=np.float32)
                - (n_xy - 1) / 2) * _F32(xy_step_m)
@@ -99,10 +95,8 @@ def _lattice_cells(beams, x_guess, y_guess, yaw_guess_deg, origin_x,
                                 yaw_guess_deg + dyaw, tof)
 
     # vmap, NOT lax.map: the yaw axis is tiny and static, and lax.map
-    # compiles to a sequential scan — 7 serialized endpoint computations
-    # per match added measurable latency at 26 matches per flight
-    import jax as _jax
-    pts, hit = _jax.vmap(yaw_endpoints)(jnp.asarray(offs_yaw))  # [Y, 32, 2]
+    # compiles to a sequential scan of 7 endpoint computations per match
+    pts, hit = jax.vmap(yaw_endpoints)(jnp.asarray(offs_yaw))  # [Y, 32, 2]
 
     ex = pts[..., 0][:, :, None] + offs_xy[None, None, :]      # [Y, 32, Tx]
     ey = pts[..., 1][:, :, None] + offs_xy[None, None, :]      # [Y, 32, Ty]
@@ -129,10 +123,9 @@ def _score_lattice(window, wy0, wx0, beams, x_guess, y_guess,
     so the endpoint column index rx varies only over (Y, Tx, beam) and
     the row index ry only over (Y, Ty, beam) — the [Y*Tx*Ty*32, win]
     one-hot batch of the round-2 formulation factors into two small
-    per-(Y, beam) matmuls.  ~7x fewer MXU FLOPs, and the largest
-    intermediate shrinks from [N=10976, 128] f32 per match (which
-    OOMed the flat SLAM keyframe-match batch at B=128 on a 16 GB
-    chip) to [Y, 32, Ty, 128].  Per-entry values are identical: each
+    per-(Y, beam) matmuls: ~7x fewer FLOPs, and the largest
+    intermediate shrinks from [N=10976, 128] f32 per match to
+    [Y, 32, Ty, 128].  Per-entry values are identical: each
     output cell of BOTH dots sums exactly one nonzero product in f32
     (one-hot selectors; int8 grid values are bf16-representable), and
     the beam reduction keeps the same axis order as before.  Each side
@@ -145,11 +138,6 @@ def _score_lattice(window, wy0, wx0, beams, x_guess, y_guess,
         cfg, tof, n_xy, n_yaw, xy_step_m, yaw_step_deg)
     ry = cy + geom.pad - wy0                                   # [Y, 32, Ty]
     rx = cx + geom.pad - wx0                                   # [Y, 32, Tx]
-    # window extent from the ARRAY, not the geom: the SLAM pass-1 kernel
-    # emits [win_rows+8, 2*win_cols] snapshot slabs that are scored
-    # directly (every in-grid candidate cell provably falls inside the
-    # [96, 128] match window, which the slab covers — so slab scoring is
-    # bit-equal to window scoring while skipping the slicing stage)
     rows = jnp.arange(window.shape[-2])
     cols = jnp.arange(window.shape[-1])
     R = ((ry[..., None] == rows) & iny[..., None]
@@ -168,11 +156,10 @@ def _score_lattice(window, wy0, wx0, beams, x_guess, y_guess,
 
 def _window_by_matmul(padded_grid, wy0, wx0, geom: GridGeom):
     """Slice the [win_rows, win_cols] window at (wy0, wx0) through two
-    one-hot matmuls: a vmapped dynamic_slice with per-flight starts
-    lowers to a pathological gather on TPU (the ~70%-of-cost lesson from
-    PERFORMANCE.md), while the matmuls ride the MXU.  EXACT: int8 grid
-    values and one-hot selectors are bf16-representable, and each output
-    cell sums exactly one nonzero product in f32.  Returns f32."""
+    one-hot matmuls instead of a vmapped dynamic_slice with per-flight
+    starts.  EXACT: int8 grid values and one-hot selectors are
+    bf16-representable, and each output cell sums exactly one nonzero
+    product in f32.  Returns f32."""
     bf = jnp.bfloat16
     rows = wy0 + jnp.arange(geom.win_rows)
     A = (rows[:, None] == jnp.arange(geom.prows)[None, :]).astype(bf)
@@ -187,9 +174,7 @@ def _window_by_matmul(padded_grid, wy0, wx0, geom: GridGeom):
 
 def window_origin(pcx, pcy, geom: GridGeom = DEFAULT_GEOM):
     """Padded-grid top-left cell (wy0, wx0) of the [win_rows, win_cols]
-    match window centered on pose cell (pcx, pcy) — the ONE definition
-    shared by match_scan and the SLAM pass-1 snapshot kernel (their
-    window contents must be bit-equal)."""
+    match window centered on pose cell (pcx, pcy)."""
     wy0 = jnp.clip(pcy + geom.pad - geom.win_rows // 2, 0,
                    geom.prows - geom.win_rows)
     wx0 = jnp.clip(pcx + geom.pad - geom.win_cols // 2, 0,
@@ -213,47 +198,6 @@ def match_window(window: jnp.ndarray, wy0, wx0, beams,
                                  xy_step_m, yaw_step_deg)
     return _peak_result(scores, hit, x_guess, y_guess, yaw_guess_deg,
                         xy_step_m, yaw_step_deg)
-
-
-def match_slabs(slabs, r0s, c0s, beams, x_guess, y_guess, yaw_guess_deg,
-                origin_x, origin_y, cfg: MapConfig = MapConfig(),
-                tof: TofConfig = TofConfig(), geom: GridGeom = DEFAULT_GEOM,
-                n_xy: int = 7, n_yaw: int = 7, xy_step_m: float = 0.05,
-                yaw_step_deg: float = 1.0,
-                interpret: bool | None = None) -> MatchResult:
-    """Flat-batch matcher over kernel-emitted snapshot slabs
-    (ops/pallas_residentx.py::pallas_map_snap): slabs i8 [N, SR, SC]
-    with 8/128-aligned padded-grid origins (r0s, c0s) i32 [N]; all other
-    args [N].  Index prep (endpoint cells + masks) runs in XLA via the
-    shared `_lattice_cells`; the scoring runs as ONE pallas launch with
-    VMEM-resident one-hot matmuls (ops/pallas_scanmatch.py).  Bit-equal
-    to a vmapped match_window over the windows the slabs cover: every
-    in-grid candidate cell falls inside the match window (containment
-    proof `_assert_window_fits`), and masked endpoints ship index -1
-    (all-zero one-hot = the XLA side's folded masks)."""
-    from micro_quad_slam_tpu.ops.pallas_scanmatch import (
-        pallas_match_lattice)
-    import jax as _jax
-
-    _assert_window_fits(cfg, geom, n_xy, xy_step_m)
-    cy, cx, iny, inx, hit = _jax.vmap(
-        lambda bm, xg, yg, wg, ox_, oy_: _lattice_cells(
-            bm, xg, yg, wg, ox_, oy_, cfg, tof, n_xy, n_yaw, xy_step_m,
-            yaw_step_deg)
-    )(beams, x_guess, y_guess, yaw_guess_deg, origin_x, origin_y)
-    ry = jnp.where(iny & hit[..., None],
-                   cy + geom.pad - r0s[:, None, None, None], -1)
-    rx = jnp.where(inx, cx + geom.pad - c0s[:, None, None, None], -1)
-    # [N, Y, 32, T] -> [N, Y*T, 32] with rows ordered (yaw, candidate)
-    N = slabs.shape[0]
-    pk = lambda a: jnp.swapaxes(a, 2, 3).reshape(N, -1, 32)
-    scores = pallas_match_lattice(slabs, pk(ry), pk(rx), n_yaw,
-                                  interpret)                # [N, Y, Ty, Tx]
-    scores = jnp.swapaxes(scores, 2, 3)                     # [N, Y, Tx, Ty]
-    return _jax.vmap(
-        lambda sc, h, xg, yg, wg: _peak_result(sc, h, xg, yg, wg,
-                                               xy_step_m, yaw_step_deg)
-    )(scores, hit, x_guess, y_guess, yaw_guess_deg)
 
 
 def match_scan(

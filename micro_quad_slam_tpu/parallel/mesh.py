@@ -2,11 +2,11 @@
 
 The reference's "distribution" is four heterogeneous processors on
 point-to-point UARTs (SURVEY.md §2F); those links are replayed from logs,
-not re-implemented.  The rebuild's parallelism is the TPU-native
-equivalent: pure data parallelism over independent replays (one virtual
-quad per batch lane), sharded over a 1-D `('logs',)` device mesh with
-`NamedSharding` — XLA inserts the collectives (all-reduce over ICI) only
-for the aggregate metrics.  No TP/PP analog exists or is needed: each
+not re-implemented.  The rebuild's parallelism is pure data parallelism
+over independent replays (one virtual quad per batch lane), sharded over
+a 1-D `('logs',)` device mesh with `NamedSharding` — XLA inserts the
+collectives (NCCL all-reduces over NVLink on GPUs) only for the
+aggregate metrics.  No TP/PP analog exists or is needed: each
 replay's state (pose, 400 KB padded grid, filters) is tiny and strictly
 sequential in time; throughput comes from batching, exactly like the
 driver's north-star configs (BASELINE.md: 256-4096 logs per chip).
@@ -38,9 +38,10 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = LOGS_AXIS) -> Mesh:
 
 
 def shard_batch(frames: dict, mesh: Mesh, axis: str = LOGS_AXIS) -> dict:
-    """Place a [B, T, ...] frame batch with B sharded over the mesh."""
+    """Place a [B, T, ...] frame batch (host or device arrays) with B
+    sharded over the mesh."""
     sharding = NamedSharding(mesh, P(axis))
-    return {k: jax.device_put(np.asarray(v), sharding) for k, v in frames.items()}
+    return {k: jax.device_put(v, sharding) for k, v in frames.items()}
 
 
 def batch_metrics(outs: dict) -> dict:
@@ -73,29 +74,12 @@ def replay_mapping_sharded(
     frames: dict of [B, T, ...] arrays (host or device).  B should be a
     multiple of the mesh size.  Returns (MappingState [B,...], outs,
     metrics) with per-flight grids left device-sharded and metrics
-    all-reduced to replicated scalars.
-
-    The XLA kernels partition under plain GSPMD; the pallas "resident"
-    kernel is explicitly `shard_map`ped so each device runs the kernel
-    over its local batch shard.
+    all-reduced to replicated scalars.  Every kernel partitions under
+    plain GSPMD.
     """
     mesh = mesh or make_mesh()
     frames = shard_batch(frames, mesh)
-    if not kernel.startswith("resident"):
-        return _replay_batched_with_metrics(frames, cfg, geom, kernel)
-
-    spec = P(LOGS_AXIS)
-    inner = jax.shard_map(
-        partial(_replay_batched, cfg=cfg, geom=geom, kernel=kernel),
-        mesh=mesh, in_specs=(spec,), out_specs=spec,
-        check_vma=False)  # pallas out_shape carries no vma type
-
-    @jax.jit
-    def run(fr):
-        state, outs = inner(fr)
-        return state, outs, batch_metrics(outs)
-
-    return run(frames)
+    return _replay_batched_with_metrics(frames, cfg, geom, kernel)
 
 
 def shard_pytree(tree, batch: int, mesh: Mesh, axis: str = LOGS_AXIS,
@@ -143,11 +127,11 @@ def slam_replay_sharded(frames: dict, cfg: PipelineConfig = UL_PROFILE,
                         geom: GridGeom = DEFAULT_GEOM, kf_every: int = 10,
                         gn_iters: int = 8):
     """Full SLAM pipeline (EKF odometry -> scan match -> pose-graph GN ->
-    resident re-raster) with flights sharded across the mesh.  SLAM is
-    per-flight data-parallel and contains pallas re-raster launches, so
-    it runs under `shard_map` — each device executes the whole pipeline
-    on its local shard; results are bit-identical to the unsharded
-    slam_replay (no RNG, no cross-flight math; asserted in tests)."""
+    re-raster) with flights sharded across the mesh.  SLAM is per-flight
+    data-parallel, so it runs under `shard_map` — each device executes
+    the whole pipeline on its local shard; results are bit-identical to
+    the unsharded slam_replay (no RNG, no cross-flight math; asserted in
+    tests)."""
     from micro_quad_slam_tpu.slam.pipeline import SlamResult, slam_replay
 
     mesh = mesh or make_mesh()

@@ -46,8 +46,8 @@ def _ekf_replay_batched(frames: dict, cfg: PipelineConfig, extra=None):
     step_fn(carry, mean, frame) -> (carry, out_dict) sees the posterior
     mean of each step.  Used by the SLAM pipeline to fuse its
     origin/recenter schedule into this scan — a second T-length scan
-    costs ~28 ms of pure loop overhead at B=128, T=256 — while keeping
-    the EKF itself defined in exactly one place."""
+    would add its own per-step loop overhead — while keeping the EKF
+    itself defined in exactly one place."""
     B, T = frames["of_rate_x"].shape
     # dt from the sensor-side clock (dual-clock scheme,
     # uav_local_nav.c:1362-1364); first frame gets dt=0.
@@ -88,13 +88,9 @@ def _ekf_replay_batched(frames: dict, cfg: PipelineConfig, extra=None):
             out.update(xout)
         return (st, xc), out
 
-    # unroll: the per-step body is tiny [B, 8, 8] algebra, so the scan is
-    # latency-bound by per-iteration loop overhead at small B (51 ms for
-    # T=256 at B=128 before unrolling)
     xc0 = None if extra is None else extra[0]
     # unroll amortizes the per-iteration loop overhead of the tiny
-    # [B, 8, 8] step body; 8 measured best at B=128-1024 (MQS_EKF_UNROLL
-    # for A/B on future hardware)
+    # [B, 8, 8] step body (MQS_EKF_UNROLL for A/B)
     import os
     _unroll = int(os.environ.get("MQS_EKF_UNROLL", "8"))
     (state, _), outs = lax.scan(step, (state0, xc0), seq, unroll=_unroll)

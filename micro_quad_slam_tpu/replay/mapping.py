@@ -4,7 +4,7 @@ This is the minimum end-to-end slice of the framework (SURVEY.md §7 step 4):
 the reference's offline-mapping pipeline (scan ingestion call stack, SURVEY
 §3.2) recomputed from logged poses as one pure step function.
 
-TPU-first structure: ONE `lax.scan` over time with the whole batch inside
+Structure: ONE `lax.scan` over time with the whole batch inside
 each step (not vmap-of-scan).  This (a) amortizes per-step dispatch over
 all B quads, and (b) lets the rare full-grid recenter hide behind a
 batch-level `lax.cond` — under vmap-of-scan the cond would decay to a
@@ -36,10 +36,13 @@ import jax.numpy as jnp
 from jax import lax
 
 from micro_quad_slam_tpu.ops.beams import extract_beams, tof_filter_update
+from micro_quad_slam_tpu.ops.conemode import cone_scan_update, hybrid_scan_update
 from micro_quad_slam_tpu.ops.raycast import (
     DEFAULT_GEOM,
     GridGeom,
     apply_scan_to_grid,
+    apply_scan_to_grid_mxu,
+    apply_scan_to_grid_mxu2,
     recenter_apply,
     recenter_decide,
     shift_origin,
@@ -47,6 +50,17 @@ from micro_quad_slam_tpu.ops.raycast import (
 from micro_quad_slam_tpu.utils.config import PipelineConfig, UL_PROFILE
 
 _F32 = np.float32
+
+# Map-update kernels by name.  "xla", "mxu" and "mxu2" are bit-exact
+# reference semantics; "cone" is the dense inverse-sensor-model mode and
+# "hybrid" the production mode (dense free carve + the reference's exact
+# endpoint occupied semantics).  Per-quad updates are vmapped over the
+# batch; the mxu variants take the whole batch.
+_VMAPPED_UPDATES = {"xla": apply_scan_to_grid, "cone": cone_scan_update,
+                    "hybrid": hybrid_scan_update}
+_BATCHED_UPDATES = {"mxu": apply_scan_to_grid_mxu,
+                    "mxu2": apply_scan_to_grid_mxu2}
+KERNELS = tuple(_VMAPPED_UPDATES) + tuple(_BATCHED_UPDATES)
 
 # MAV_SYS_STATUS sensor bits (MAVLink common enum values)
 SENSOR_3D_GYRO = 0x01
@@ -114,7 +128,11 @@ def mapping_step(
     `frame` holds [B]-leading arrays: either raw `grid_mm` u16 [B,4,8,8]
     or precomputed `beams`/`minima` (the replay driver extracts beams for
     all frames up-front — embarrassingly parallel, outside the scan).
+    `kernel` is one of KERNELS; any other name raises ValueError.
     """
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown map-update kernel {kernel!r}; "
+                         f"expected one of {KERNELS}")
     if "beams" in frame:
         beams, minima = frame["beams"], frame["minima"]
     else:
@@ -158,45 +176,16 @@ def mapping_step(
         x, yaw, frame["of_q"].astype(jnp.int32), frame["of_rate_x"],
         frame["sys_health"], cfg.gates.of_min_quality,
     )
-    if kernel == "pallas":
-        from micro_quad_slam_tpu.ops.pallas_raycast import pallas_apply_scans
-        grid = pallas_apply_scans(grid, beams, x, y, yaw, origin_x,
-                                  origin_y, enabled, cfg.map, cfg.tof, geom)
-    elif kernel == "pallas_db":
-        from micro_quad_slam_tpu.ops.pallas_raycast import pallas_apply_scans_db
-        grid = pallas_apply_scans_db(grid, beams, x, y, yaw, origin_x,
-                                     origin_y, enabled, cfg.map, cfg.tof,
-                                     geom)
-    elif kernel == "mxu":
-        from micro_quad_slam_tpu.ops.raycast import apply_scan_to_grid_mxu
-        grid = apply_scan_to_grid_mxu(grid, beams, x, y, yaw, origin_x,
-                                      origin_y, enabled, cfg.map, cfg.tof,
-                                      geom)
-    elif kernel == "mxu2":
-        from micro_quad_slam_tpu.ops.raycast import apply_scan_to_grid_mxu2
-        grid = apply_scan_to_grid_mxu2(grid, beams, x, y, yaw, origin_x,
-                                       origin_y, enabled, cfg.map, cfg.tof,
-                                       geom)
-    elif kernel == "cone":
-        from micro_quad_slam_tpu.ops.conemode import cone_scan_update
-        grid = jax.vmap(
-            lambda gi, b, xi, yi, yawi, oxi, oyi, en: cone_scan_update(
-                gi, b, xi, yi, yawi, oxi, oyi, en, cfg.map, cfg.tof, geom
-            )
-        )(grid, beams, x, y, yaw, origin_x, origin_y, enabled)
-    elif kernel == "hybrid":
-        from micro_quad_slam_tpu.ops.conemode import hybrid_scan_update
-        grid = jax.vmap(
-            lambda gi, b, xi, yi, yawi, oxi, oyi, en: hybrid_scan_update(
-                gi, b, xi, yi, yawi, oxi, oyi, en, cfg.map, cfg.tof, geom
-            )
-        )(grid, beams, x, y, yaw, origin_x, origin_y, enabled)
+    args = (beams, x, y, yaw, origin_x, origin_y, enabled, cfg.map, cfg.tof,
+            geom)
+    if kernel in _BATCHED_UPDATES:
+        grid = _BATCHED_UPDATES[kernel](grid, *args)
     else:
+        update = _VMAPPED_UPDATES[kernel]
         grid = jax.vmap(
-            lambda gi, b, xi, yi, yawi, oxi, oyi, en: apply_scan_to_grid(
-                gi, b, xi, yi, yawi, oxi, oyi, en, cfg.map, cfg.tof, geom
-            )
-        )(grid, beams, x, y, yaw, origin_x, origin_y, enabled)
+            lambda gi, b, xi, yi, yawi, oxi, oyi, en: update(
+                gi, b, xi, yi, yawi, oxi, oyi, en, cfg.map, cfg.tof, geom)
+        )(grid, *args[:7])
 
     new_state = MappingState(grid, origin_x, origin_y, inited, filt)
     out = {
@@ -239,33 +228,6 @@ def _replay_batched(frames: dict, cfg: PipelineConfig, geom: GridGeom,
             f"batch mismatch: state0 holds {state0.origin_x.shape[0]} "
             f"flights but frames hold {frames['x_m'].shape[0]} (resume "
             f"must continue the same batch)")
-    if kernel == "residentx":
-        # v2 exact whole-replay kernel: range-form membership + endpoint
-        # fix-up, F frames per program (ops/pallas_residentx.py)
-        from micro_quad_slam_tpu.ops.pallas_residentx import (
-            pallas_replay_residentx)
-        return pallas_replay_residentx(frames, cfg, geom, state0=state0)
-    if kernel == "conex":
-        # grouped cone production kernel (ops/pallas_residentx.py);
-        # bit-identical to the XLA "cone" path
-        from micro_quad_slam_tpu.ops.pallas_residentx import (
-            pallas_replay_conex)
-        return pallas_replay_conex(frames, cfg, geom, state0=state0)
-    if kernel == "hybridx":
-        # grouped HYBRID production kernel: dense free carve + exact
-        # reference endpoint semantics; bit-identical to "hybrid"
-        from micro_quad_slam_tpu.ops.pallas_residentx import (
-            pallas_replay_conex)
-        return pallas_replay_conex(frames, cfg, geom, state0=state0,
-                                   hybrid=True)
-    if kernel in ("resident", "resident_cone"):
-        # whole replay in ONE pallas launch: grid resident in VMEM per
-        # quad, schedule precomputed by a grid-free scalar scan
-        from micro_quad_slam_tpu.ops.pallas_resident import (
-            pallas_replay_resident)
-        mode = "cone" if kernel == "resident_cone" else "exact"
-        return pallas_replay_resident(frames, cfg, geom, mode=mode,
-                                      state0=state0)
     B, T = frames["x_m"].shape
     # beams for every (flight, frame) at once — parallel, outside the scan
     beams, minima = extract_beams(frames["grid_mm"], cfg.tof)
@@ -292,12 +254,12 @@ def _replay_batched(frames: dict, cfg: PipelineConfig, geom: GridGeom,
 def replay_mapping_batched(frames: dict, cfg: PipelineConfig = UL_PROFILE,
                            geom: GridGeom = DEFAULT_GEOM,
                            kernel: str = "xla", state0=None):
-    """Batched replay: frames dict of [B, T, ...] arrays.  kernel:
-    "xla" / "pallas" / "pallas_db" / "mxu" / "mxu2" / "resident" are all
-    bit-exact reference semantics ("resident" = the flagship whole-replay
-    pallas kernel, ops/pallas_resident.py); "cone" / "resident_cone" are
-    the dense inverse-sensor-model production mode (bit-identical to each
-    other, denser and far faster, not bit-exact vs the reference).
+    """Batched replay: frames dict of [B, T, ...] arrays.  kernel (one of
+    KERNELS, else ValueError): "xla" / "mxu" / "mxu2" are bit-exact
+    reference semantics; "cone" is the dense inverse-sensor-model mode
+    and "hybrid" the production mode (dense free-space carve + the
+    reference's exact endpoint occupied semantics); neither is bit-exact
+    vs the reference.
 
     state0: resume from a prior replay's MappingState (checkpoint-
     restart); the continuation bit-matches an unbroken replay."""

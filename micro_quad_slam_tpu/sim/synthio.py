@@ -190,11 +190,9 @@ def synth_room_scanlog(
 def slam_bench_frames(B: int, T: int, device_put: bool = True) -> dict:
     """The CANONICAL SLAM/EKF benchmark workload: 4 distinct drift-free
     circle flights with flow, replicated to B with identical content.
-    ONE definition shared by bench.py (the driver record),
-    tools/tune_slam_cost.py (which picks UL defaults against it), and
-    tools/prof_slam_sections_tpu.py — a workload tweak here changes all
-    three together instead of silently desynchronizing them (round-5
-    review finding)."""
+    ONE definition shared by bench.py, chip_smoke.py and
+    tools/tune_slam_cost.py (which picks UL defaults against it) — a
+    workload tweak here changes all of them together."""
     import jax as _jax
     import jax.numpy as _jnp
 
@@ -211,3 +209,26 @@ def slam_bench_frames(B: int, T: int, device_put: bool = True) -> dict:
     if not device_put:
         return b
     return {k: _jax.device_put(_jnp.asarray(v)) for k, v in b.items()}
+
+
+def replay_bench_frames(B: int, T: int) -> dict:
+    """The CANONICAL mapping-replay benchmark workload (host numpy, [B, T]
+    scanlog arrays): one synthetic hover flight replicated B times with
+    per-flight pose jitter (0.3 m in x and y, uniform yaw offset).  The
+    replay's throughput path is the same for any inputs (static shapes),
+    so generation cost stays off the benchmark.  Shared by bench.py and
+    chip_smoke.py."""
+    from micro_quad_slam_tpu.replay.mapping import scanlog_to_arrays
+
+    base = scanlog_to_arrays(
+        synth_room_scanlog(n_frames=T, seed=0, path="hover",
+                           yaw_rate_dps=20.0, noise_mm=5.0))
+    rng = np.random.default_rng(1)
+    frames = {k: np.broadcast_to(v, (B,) + v.shape).copy()
+              for k, v in base.items()}
+    frames["x_m"] += rng.normal(0, 0.3, (B, 1)).astype(np.float32)
+    frames["y_m"] += rng.normal(0, 0.3, (B, 1)).astype(np.float32)
+    frames["yaw_deg"] = np.mod(
+        frames["yaw_deg"] + rng.uniform(-180, 180, (B, 1)).astype(np.float32)
+        + 180.0, 360.0) - 180.0
+    return frames

@@ -10,25 +10,23 @@ missing back-end in three passes, all on-device:
           so far (ops/scanmatch.py) corrects the guess before the fused
           raycast update.  The match map accumulates KEYFRAME scans only
           by default (SlamConfig.match_map_kf_only — it exists solely to
-          localize against; pass 3 re-rasters every frame).  On TPU each
-          snapshot interval lands on the grid through ONE resident-kernel
-          launch inside a lax.scan over equal-size chunks (constant
-          compile time in T); elsewhere a plain per-frame lax.scan runs
-          the same match/update order.
+          localize against; pass 3 re-rasters every frame).  By default
+          a match-free chunk scan builds the snapshot grids and every
+          keyframe then matches in one flat batch (_map_pass_nofb); the
+          feedback formulation runs a per-frame lax.scan (_map_pass).
   pass 2  (parallel): build an SE(2) pose graph per flight — odometry
           edges between consecutive keyframes + match-anchor edges +
           proximity-gated revisit loop edges — and run batched dense
           Gauss-Newton (slam/posegraph.py, Cholesky on the SPD normals).
-  pass 3  (parallel): re-raster the map from the corrected track (one
-          resident-kernel launch on TPU).
+  pass 3  (sequential over frames): re-raster the map from the
+          corrected track.
 
 The grid recenters exactly like the mapping replay when the pose strays
 past the map threshold (uav_local_nav.c:308-353): the recenter schedule
 is decided grid-free from the odometry track (the same decide/shift
 scalars, ops/raycast.py:252-281), so the whole pipeline keeps static
-shapes and the TPU chunk kernel applies the rolls in-kernel.  Without
-this, a long-excursion flight beyond ~21 m of the start silently dropped
-rays (VERDICT round 2, missing item 3).
+shapes.  Without this, a long-excursion flight beyond ~21 m of the start
+silently dropped rays.
 
 Keyframe poses between graph nodes are corrected rigidly relative to the
 owning keyframe (standard pose-graph interpolation).  All tunables live
@@ -86,8 +84,7 @@ def _odo_and_schedule(frames, cfg, origin0=None):
     """EKF odometry + origin/recenter schedule in ONE scan (the fusion
     replay's scan via its extra hook): outputs identical to
     _ekf_track + _origin_schedule — asserted in tests — at one T-length
-    loop instead of two (each loop costs ~28 ms of pure per-iteration
-    overhead at B=128, T=256)."""
+    loop instead of two (each sequential loop adds per-step overhead)."""
     from micro_quad_slam_tpu.replay.fusion import _ekf_replay_batched
 
     B, T = frames["x_m"].shape
@@ -271,11 +268,17 @@ def _map_pass(beams, poses, cfg, geom, match: bool, kf_mask_t, sched=None,
 def _compose_kf_sched(sch, B: int, nc: int, kf_every: int, n_kf: int):
     """Compose the per-frame recenter schedule over keyframe intervals:
     slot j's composed window covers frames (T_{j-1}, T_j] so rolling once
-    per keyframe slot reaches the same grid as rolling every frame
-    (zero-fill translations compose exactly; same-sign proof in
-    _map_pass_chunked's docstring).  Returns (comp, tail): comp[k]
-    [B, K_p] per-slot composed shifts/flags, tail[k] [B] the post-last-
-    keyframe remainder (rolled once after the scan)."""
+    per keyframe slot reaches the same grid as rolling every frame.
+    Zero-fill translations compose exactly — roll(roll(G, s1), s2) ==
+    roll(G, s1+s2) — for same-sign shift pairs (the divergence-driven
+    multi-recenter case); an OPPOSITE-sign pair inside one kf_every
+    interval could differ near the grid edge, but needs two ~12.5 m pose
+    jumps in opposite directions within <1 s — unreachable from
+    recenter_decide's 15 m threshold under finite poses (NaN jumps are
+    isfinite-gated).  Composed shifts stay < prows: even back-to-back
+    125-cell clamped shifts sum to 250 << 608.  Returns (comp, tail):
+    comp[k] [B, K_p] per-slot composed shifts/flags, tail[k] [B] the
+    post-last-keyframe remainder (rolled once after the scan)."""
     K_p = nc * n_kf
     seg = lambda a: jnp.pad(
         a[:, 1:], ((0, 0), (0, 1))).reshape(B, K_p, kf_every).sum(-1)
@@ -311,19 +314,16 @@ def _pad_chunk_inputs(beams, poses, sched, B: int, T: int, C: int,
 
 
 def _map_pass_nofb(beams, poses, cfg, geom, kf_every: int, sched,
-                   grid0=None, use_kernel: bool | None = None,
-                   n_iters: int | None = None):
+                   grid0=None, n_iters: int | None = None):
     """Feedback-free pass 1 (SlamConfig.match_feedback=False): within an
     iteration the match map accumulates keyframe scans at FIXED pose
     estimates (iteration 1: raw odometry; iteration i>1: the previous
     iteration's matched poses), so the grid chain never depends on the
     matcher inside the iteration.  The snapshot grids at each match
-    interval start are produced by a match-free chunk scan — one
-    resident-kernel launch per interval on TPU, the XLA window update
-    elsewhere — and ALL keyframe matches then run as ONE flat batch
-    against their interval-start snapshot.  This removes the
-    match->kernel->match serialization that dominated pass-1 latency on
-    TPU (tools/prof_pass1_tpu.py: matcher compute 3.7 ms, pass-1 ~64 ms).
+    interval start are produced by a match-free chunk scan, and ALL
+    keyframe matches then run as ONE flat batch against their
+    interval-start snapshot.  This removes the match->update->match
+    serialization of the feedback formulation.
     SlamConfig.match_iters repetitions of (rebuild map at current
     estimates -> flat re-match) recover the accuracy the feedback
     formulation got from correcting the map as it grew — the iteration
@@ -331,16 +331,8 @@ def _map_pass_nofb(beams, poses, cfg, geom, kf_every: int, sched,
     each round (fig-8 A/B in tests/test_slam.py).  Matching semantics
     per keyframe (snapshot state, snapshot origin, lattice, quality
     gate) are identical to the feedback path.
-    use_kernel: None = backend default (kernel on TPU); tests force both
-    ways for bit-equality.  Requires match_map_kf_only (caller asserts).
+    Requires match_map_kf_only (caller asserts).
     Returns (final grids, matched poses [B, T, 3])."""
-    from micro_quad_slam_tpu.ops.pallas_residentx import (
-        _snap_align, pallas_map_snap)
-    from micro_quad_slam_tpu.ops.raycast import world_to_cell
-    from micro_quad_slam_tpu.ops.scanmatch import match_slabs, window_origin
-
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
     B, T = poses.shape[:2]
     grids0 = (jnp.zeros((B, geom.prows, geom.pcols), jnp.int8)
               if grid0 is None else grid0)
@@ -356,19 +348,12 @@ def _map_pass_nofb(beams, poses, cfg, geom, kf_every: int, sched,
     n_kf = len(kf_offs)
     K_p = nc * n_kf
     comp, tail = _compose_kf_sched(sch, B, nc, kf_every, n_kf)
-    s = cfg.slam
 
     ksel = lambda a: a[:, ::kf_every]                     # [B, K_p, ...]
     chunked_k = lambda a: jnp.moveaxis(
         a.reshape((B, nc, n_kf) + a.shape[2:]), 0, 1)     # [nc, B, n_kf]
     kf_beams = ksel(beams_p)                              # [B, K_p, 4, 8]
     kf_ox, kf_oy = ksel(sch["ox"]), ksel(sch["oy"])       # [B, K_p]
-    # chunk-start origins, repeated per slot: every slot matches against
-    # the chunk-start SNAPSHOT, so lookups use the chunk-start origin
-    # (after a mid-chunk recenter a keyframe's own origin no longer
-    # describes the snapshot's frame)
-    sox = jnp.repeat(kf_ox[:, ::n_kf], n_kf, axis=1)      # [B, K_p]
-    soy = jnp.repeat(kf_oy[:, ::n_kf], n_kf, axis=1)
 
     seq_fix = {
         "beams": chunked_k(kf_beams),
@@ -401,7 +386,10 @@ def _map_pass_nofb(beams, poses, cfg, geom, kf_every: int, sched,
 
     # ALL keyframe matches in one flat (vmapped over interval x slot)
     # batch against the interval-start snapshots — nothing downstream of
-    # a match feeds a grid, so the whole batch runs in parallel
+    # a match feeds a grid, so the whole batch runs in parallel.  Every
+    # slot looks cells up with the chunk-start origin: after a mid-chunk
+    # recenter a keyframe's own origin no longer describes the snapshot's
+    # frame.
     def match_chunk(snap_c, beams_c, pose_c, sox_c, soy_c):
         return jax.vmap(
             lambda bm, xk, yk, wk: _match_kf(snap_c, bm, xk, yk, wk,
@@ -412,8 +400,8 @@ def _map_pass_nofb(beams, poses, cfg, geom, kf_every: int, sched,
 
     tb = lambda a: jnp.moveaxis(a, 0, 1).reshape(B, K_p)
 
-    def one_round_xla(est_p):
-        """(map chunk scan at `est` -> flat match batch), XLA windows."""
+    def one_round(est_p):
+        """(map chunk scan at `est` -> flat match batch)."""
         seq = dict(seq_fix, pose=chunked_k(ksel(est_p)))
         grids, (snaps, sox_c, soy_c) = lax.scan(body, grids0, seq)
         grids = _recenter_grids(grids, tail["do"], tail["rsy"],
@@ -421,48 +409,6 @@ def _map_pass_nofb(beams, poses, cfg, geom, kf_every: int, sched,
         mx, my, myaw = jax.vmap(match_chunk)(
             snaps, seq_fix["beams"], seq["pose"], sox_c, soy_c)
         return grids, tb(mx), tb(my), tb(myaw)            # [B, K_p]
-
-    def one_round_kernel(est_p):
-        """Same round through ONE pallas_map_snap launch: the kernel
-        walks all keyframe slots on the resident grid and emits every
-        chunk-start snapshot slab; the flat match batch then scores the
-        slabs directly (bit-equal to match_scan against the full
-        snapshot grid: every in-grid candidate cell falls inside the
-        match window, which the slab covers).  Replaces the
-        2 x nc sequential chunk launches that dominated pass-1 latency
-        (VERDICT round 3, next-round ask 2)."""
-        kf_pose = ksel(est_p)                             # [B, K_p, 3]
-        kf_x, kf_y = kf_pose[..., 0], kf_pose[..., 1]
-        kf_yaw = jnp.rad2deg(kf_pose[..., 2])
-        pcx, pcy = world_to_cell(kf_x, kf_y, sox, soy, cfg.map.res_m,
-                                 cfg.map.width // 2, cfg.map.height // 2)
-        wy0, wx0 = window_origin(pcx, pcy, geom)
-        grids, snaps = pallas_map_snap(
-            grids0, kf_beams, kf_x, kf_y, kf_yaw, kf_ox, kf_oy,
-            comp["do"], comp["rsy"], comp["rsx"], wy0, wx0, n_kf, cfg,
-            geom)
-        grids = _recenter_grids(grids, tail["do"], tail["rsy"],
-                                tail["rsx"], cfg, geom)
-        # score the slabs in ONE pallas matcher launch (VMEM-resident
-        # one-hot matmuls, ops/pallas_scanmatch.py): the XLA matcher
-        # materialized ~1.5 MB of intermediates per match in HBM and ran
-        # memory-bound (~15 ms/round at the VERDICT workload); bit-equal
-        # (test_pallas_match_lattice_matches_xla)
-        r0s, c0s = _snap_align(wy0, wx0, geom)
-        fl = lambda a: a.reshape((B * K_p,) + a.shape[2:])
-        res = match_slabs(
-            fl(snaps), fl(r0s), fl(c0s), fl(kf_beams), fl(kf_x),
-            fl(kf_y), fl(kf_yaw), fl(sox), fl(soy), cfg.map, cfg.tof,
-            geom, s.match_n_xy, s.match_n_yaw, s.match_xy_step_m,
-            s.match_yaw_step_deg)
-        res = jax.tree_util.tree_map(
-            lambda a: a.reshape(B, K_p), res)
-        ok = res.quality > _F32(s.match_min_quality)
-        return (grids, jnp.where(ok, res.x, kf_x),
-                jnp.where(ok, res.y, kf_y),
-                jnp.where(ok, res.yaw_deg, kf_yaw))
-
-    one_round = one_round_kernel if use_kernel else one_round_xla
 
     matched = poses
     if n_iters is None:
@@ -482,181 +428,19 @@ def _map_pass_nofb(beams, poses, cfg, geom, kf_every: int, sched,
     return grids, matched
 
 
-def _map_pass_chunked(beams, poses, cfg, geom, kf_every: int, sched,
-                      grid0=None, _ablate: str = ""):
-    """TPU variant of the match=True _map_pass: identical sequence of
-    matches and grid updates, but each snapshot interval
-    (match_chunk_intervals keyframe intervals) lands on the grid through
-    ONE resident-kernel launch (pallas_map_chunk_sched) and the chunks
-    run under a lax.scan — per-launch overhead plus the
-    match->pack->kernel serialization was ~60% of pass-1 cost at one
-    launch per keyframe, and the unrolled Python chunk loop made
-    compile time linear in T (80 s at T=256).  All of a chunk's
-    keyframes match IN PARALLEL against the chunk-start grid (the
-    sequential path reads the same state through its snapshot carry —
-    bit-equality checked on TPU by tools/check_slam_tpu.py).
-    Chunk-start recenters are applied OUTSIDE the kernel (the matches
-    must see the rolled grid); mid-chunk recenters roll in-kernel.
-
-    With SlamConfig.match_map_kf_only (default) the kernel sees ONE
-    slot per KEYFRAME instead of every frame — the pass-1 grid only
-    feeds the matcher (pass 3 re-rasters all frames exactly), so the
-    kf_every-fold kernel-work cut costs only match-map density.  The
-    recenter schedule is composed per keyframe interval (zero-fill
-    rolls compose exactly; recenters after the last keyframe roll once
-    post-scan), keeping bit-equality with the sequential masked pass
-    (tests/test_slam.py::test_slam_chunked_kf_only_matches_sequential)."""
-    from micro_quad_slam_tpu.ops.pallas_residentx import pallas_map_chunk_sched
-
-    B, T = poses.shape[:2]
-    grids = (jnp.zeros((B, geom.prows, geom.pcols), jnp.int8)
-             if grid0 is None else grid0)
-    n_iv = max(int(cfg.slam.match_chunk_intervals), 1)
-    C = kf_every * n_iv
-    nc = -(-T // C)
-    # pad with inert frames (a pad-frame match scores 0 -> quality 0 ->
-    # the gate rejects it, identical to the sequential path's pad
-    # behavior)
-    beams_p, poses_p, sch = _pad_chunk_inputs(beams, poses, sched, B, T,
-                                              C, nc)
-
-    chunked = lambda a: jnp.moveaxis(
-        a.reshape((B, nc, C) + a.shape[2:]), 0, 1)        # [nc, B, C, ...]
-    seq = {
-        "beams": chunked(beams_p),
-        "pose": chunked(poses_p),
-        **{k: chunked(v) for k, v in sch.items()},
-    }
-    kf_offs = np.arange(0, C, kf_every)                   # chunk-local kf
-    n_kf = len(kf_offs)
-
-    kf_only = bool(cfg.slam.match_map_kf_only)
-    if kf_only:
-        # Keyframe-only match map: the kernel sees ONE slot per keyframe
-        # (kf_every-fold less kernel work) with the recenter schedule
-        # COMPOSED over each keyframe interval.  Zero-fill translations
-        # compose exactly — roll(roll(G, s1), s2) == roll(G, s1+s2) —
-        # so the grid state each keyframe's update and match see is
-        # bit-identical to the sequential path rolling every frame
-        # (asserted on TPU by tools/check_slam_tpu.py).  Exactness
-        # caveat: composition is proven only for same-sign shift pairs
-        # (the divergence-driven multi-recenter case); an OPPOSITE-sign
-        # pair inside one kf_every interval could differ near the grid
-        # edge, but needs two ~12.5 m pose jumps in opposite directions
-        # within <1 s — unreachable from recenter_decide's 15 m
-        # threshold under finite poses (NaN jumps are isfinite-gated).
-        # Composed shifts stay < prows: even back-to-back 125-cell
-        # clamped shifts sum to 250 << 608.  Composed window for
-        # keyframe j at frame T_j: frames (T_{j-1}, T_j].
-        comp, tail = _compose_kf_sched(sch, B, nc, kf_every, n_kf)
-
-        ksel = lambda a: a[:, ::kf_every]                 # [B, K_p, ...]
-        chunked_k = lambda a: jnp.moveaxis(
-            a.reshape((B, nc, n_kf) + a.shape[2:]), 0, 1)
-        for k in ("rsy", "rsx", "do"):
-            seq[k + "_c"] = chunked_k(comp[k])
-        seq["ox_c"] = chunked_k(ksel(sch["ox"]))
-        seq["oy_c"] = chunked_k(ksel(sch["oy"]))
-        for k in ("do", "rsy", "rsx"):   # only composed slots reach the
-            del seq[k]                   # kernel in kf-only mode
-
-    def body(grids, inp):
-        # chunk-start recenter outside the kernel, then zero its do flag
-        # (kf-only mode: the composed slot-0 window, which includes the
-        # previous chunk's post-keyframe tail)
-        dk = "do_c" if kf_only else "do"
-        grids = _recenter_grids(grids, inp[dk][:, 0],
-                                inp["rsy_c" if kf_only else "rsy"][:, 0],
-                                inp["rsx_c" if kf_only else "rsx"][:, 0],
-                                cfg, geom)
-        do = inp[dk].at[:, 0].set(0)
-
-        # all of this chunk's keyframes match the SAME chunk-start grid
-        # — one parallel (vmapped-over-keyframe) matcher batch.  Static
-        # python slicing + one-hot placement, NOT gather/scatter: a
-        # traced-index gather and an .at[].set scatter here crashed the
-        # XLA TPU fusion emitter (SortedScatterEmitter check failure).
-        stacko = lambda a: jnp.stack([a[:, int(o)] for o in kf_offs])
-        # every slot matches against the chunk-start SNAPSHOT grid, so
-        # lookups use the chunk-start origin — after a mid-chunk
-        # recenter a keyframe's own origin no longer describes the
-        # snapshot's frame (same snapshot-origin capture as _map_pass)
-        ox0 = inp["ox_c" if kf_only else "ox"][:, 0]
-        oy0 = inp["oy_c" if kf_only else "oy"][:, 0]
-        bco = lambda a: jnp.broadcast_to(a, (n_kf,) + a.shape)
-        if "nomatch" not in _ablate:
-            mx, my, myaw = jax.vmap(
-                lambda bm, x, y, w, ox_, oy_: _match_kf(
-                    grids, bm, x, y, w, ox_, oy_, cfg, geom)
-            )(stacko(inp["beams"]), stacko(inp["pose"][..., 0]),
-              stacko(inp["pose"][..., 1]),
-              jnp.rad2deg(stacko(inp["pose"][..., 2])),
-              bco(ox0), bco(oy0))                         # [n_iv, B]
-        else:   # profiling ablation (tools/prof_pass1_tpu.py) only
-            mx = stacko(inp["pose"][..., 0])
-            my = stacko(inp["pose"][..., 1])
-            myaw = jnp.rad2deg(stacko(inp["pose"][..., 2]))
-        kx, ky, kyaw = mx, my, myaw    # kernel-side poses
-        if "discard" in _ablate:   # ablation: match kept live through
-            # the scan OUTPUT only — the kernel consumes the raw poses,
-            # so the match->kernel serial dependency is cut while the
-            # matcher compute stays in the program
-            kx = stacko(inp["pose"][..., 0])
-            ky = stacko(inp["pose"][..., 1])
-            kyaw = jnp.rad2deg(stacko(inp["pose"][..., 2]))
-        M = np.zeros((len(kf_offs), C), np.float32)
-        M[np.arange(len(kf_offs)), kf_offs] = 1.0
-        sel = np.zeros((1, C), bool)
-        sel[0, kf_offs] = True
-        place = lambda m: lax.dot_general(
-            m.T, jnp.asarray(M), (((1,), (0,)), ((), ())),
-            precision=lax.Precision.HIGHEST)   # exact one-hot placement
-        cx_ = jnp.where(sel, place(mx), inp["pose"][..., 0])
-        cy_ = jnp.where(sel, place(my), inp["pose"][..., 1])
-        cyaw = jnp.where(sel, place(myaw),
-                         jnp.rad2deg(inp["pose"][..., 2]))
-        if "nokernel" not in _ablate:
-            if kf_only:
-                grids = pallas_map_chunk_sched(
-                    grids, stacko(inp["beams"]).swapaxes(0, 1), kx.T,
-                    ky.T, kyaw.T, inp["ox_c"], inp["oy_c"], do,
-                    inp["rsy_c"], inp["rsx_c"], cfg, geom)
-            else:
-                grids = pallas_map_chunk_sched(
-                    grids, inp["beams"], cx_, cy_, cyaw, inp["ox"],
-                    inp["oy"], do, inp["rsy"], inp["rsx"], cfg, geom)
-        return grids, jnp.stack([cx_, cy_, jnp.deg2rad(cyaw)], axis=-1)
-
-    grids, outs = lax.scan(body, grids, seq)              # outs [nc, B, C, 3]
-    if kf_only:
-        # recenters after the last keyframe (no owning slot): roll them
-        # now so the final grid matches the sequential path, which rolls
-        # on every frame
-        grids = _recenter_grids(grids, tail["do"], tail["rsy"],
-                                tail["rsx"], cfg, geom)
-    matched = jnp.moveaxis(outs, 0, 1).reshape(B, nc * C, 3)[:, :T]
-    return grids, matched
-
-
-def _loop_stage(kfp, kf_beams, kf_ox, kf_oy, cfg, geom,
-                use_kernel: bool | None = None):
+def _loop_stage(kfp, kf_beams, kf_ox, kf_oy, cfg, geom):
     """Pass 1b: proximity-gated keyframe-to-keyframe revisit loop edges
-    (VERDICT round-1: the star to node 0 alone only weakly corrects
-    genuine revisit/figure-8 drift).  For each keyframe j, the n_cand
-    nearest keyframes at least `loop_min_gap` keyframes older within
-    `loop_r_max_m` are matched against local maps rasterized from each
+    (a star to node 0 alone only weakly corrects genuine revisit/figure-8
+    drift).  For each keyframe j, the n_cand nearest keyframes at least
+    `loop_min_gap` keyframes older within `loop_r_max_m` are matched against local maps rasterized from each
     candidate's scan alone, and the loop_edges best by match quality
     become graph edges with measured relative transforms.
 
     kfp [B, K, 3] keyframe pose estimates; kf_beams [B, K, 4, 8];
     kf_ox/kf_oy [B, K] per-keyframe grid origins.  Returns per flight
     (edge ij [B, E, 2], z [B, E, 3], ok [B, E], quality [B, E]) with
-    E = loop_edges * K.
-
-    use_kernel: None = backend default (pallas lattice matcher on TPU,
-    vmapped XLA match_window elsewhere); tests force both ways —
-    the matcher scores are bit-equal (test_loop_kernel_matches_xla)."""
-    B, K = kfp.shape[:2]
+    E = loop_edges * K."""
+    K = kfp.shape[1]
     s = cfg.slam
     iidx = jnp.arange(K)
     n_edges = max(int(s.loop_edges), 1)
@@ -666,12 +450,10 @@ def _loop_stage(kfp, kf_beams, kf_ox, kf_oy, cfg, geom,
     # LOCAL window, once.  The field is ENDPOINT-ONLY (the classic
     # correlative-matching occupancy likelihood field): the matcher
     # scores endpoint log-odds, so occupied evidence is what
-    # localizes, and skipping the free-space carve of the full
-    # 32-ray raster saved ~30 ms of the 191 ms pipeline at B=128 —
-    # the field is one exact one-hot matmul pair per keyframe.
+    # localizes, and the free-space carve of the full 32-ray raster is
+    # skipped — the field is one exact one-hot matmul pair per keyframe.
     # Kept as a separate vmapped stage from the matching: fusing
-    # raster+match in one vmapped body compiled to a 7x slower
-    # program (round 2).
+    # raster+match in one vmapped body compiled to a slower program.
     def _raster_windows(kf_pose, kf_beams_b, ox_k, oy_k):
         def raster(k):
             pk = kf_pose[k]
@@ -687,8 +469,10 @@ def _loop_stage(kfp, kf_beams, kf_ox, kf_oy, cfg, geom,
             cols = (ex[:, None]
                     == jnp.arange(geom.win_cols)[None, :]).astype(
                         jnp.float32)                        # [32, 128]
+            # HIGHEST: exact f32 sums of small integers, not TF32
             win = lax.dot_general(rows * d[None, :], cols,
-                                  (((1,), (0,)), ((), ())))
+                                  (((1,), (0,)), ((), ())),
+                                  precision=lax.Precision.HIGHEST)
             win = jnp.clip(win, 0, cfg.map.lo_max)
             # int8 carry between the stages: clipped integer log-odds
             # are int8-exact, and the [B, K, 96, 128] field batch drops
@@ -700,8 +484,8 @@ def _loop_stage(kfp, kf_beams, kf_ox, kf_oy, cfg, geom,
         return jax.vmap(raster)(jnp.arange(K))
 
     # candidate selection is pure proximity logic — it never depends on
-    # a match result, so both matcher paths precompute the n_cand
-    # nearest-older candidate indices per keyframe up front
+    # a match result, so the n_cand nearest-older candidate indices per
+    # keyframe are precomputed up front
     def _cand_indices(kf_pose):
         pos = kf_pose[:, :2]
         d2 = jnp.sum((pos[None, :, :] - pos[:, None, :]) ** 2, -1)  # [i, j]
@@ -774,53 +558,7 @@ def _loop_stage(kfp, kf_beams, kf_ox, kf_oy, cfg, geom,
         _, (zc, qc) = lax.scan(meas_round, 0, (ic, near))
         return _select_edges(ic, zc, qc)
 
-    def run_loop_xla(kfp):
-        return jax.vmap(loop_edges)(kfp, kf_beams, kf_ox, kf_oy)
-
-    def run_loop_kernel(kfp):
-        """Same loop stage with ALL B * n_cand * K candidate matches in
-        ONE pallas lattice-matcher launch (ops/pallas_scanmatch.py) —
-        the XLA matcher's HBM-resident one-hot intermediates made the
-        lax.scan'd per-candidate-round matching the single most
-        expensive SLAM stage on TPU (56 ms of 193 ms at B=256, VERDICT
-        round-3 ask 2).  Candidate selection, rasters, gating and edge
-        selection are unchanged; the matcher scores are bit-equal
-        (test_loop_kernel_matches_xla), so the two paths agree."""
-        from micro_quad_slam_tpu.ops.scanmatch import match_slabs
-
-        wins, wy0s, wx0s = jax.vmap(_raster_windows)(
-            kfp, kf_beams, kf_ox, kf_oy)                  # [B, K, 96, 128]
-        ic, near = jax.vmap(_cand_indices)(kfp)           # [B, n_cand, K]
-        NC = n_cand * K
-        icf = ic.reshape(B, NC)
-        gat = lambda a: jnp.take_along_axis(a, icf, axis=1)
-        win_g = jnp.take_along_axis(
-            wins.reshape(B, K, -1), icf[..., None], axis=1
-        ).reshape(B, NC, geom.win_rows, geom.win_cols)
-        pi = jnp.take_along_axis(kfp, icf[..., None], axis=1)  # [B, NC, 3]
-        pj = jnp.broadcast_to(kfp[:, None], (B, n_cand, K, 3)
-                              ).reshape(B, NC, 3)
-        beams_j = jnp.broadcast_to(
-            kf_beams[:, None], (B, n_cand) + kf_beams.shape[1:]
-        ).reshape((B, NC) + kf_beams.shape[2:])
-        fl = lambda a: a.reshape((B * NC,) + a.shape[2:])
-        res = match_slabs(
-            fl(win_g), fl(gat(wy0s)), fl(gat(wx0s)), fl(beams_j),
-            fl(pj[..., 0]), fl(pj[..., 1]),
-            jnp.rad2deg(fl(pj[..., 2])), fl(gat(kf_ox)), fl(gat(kf_oy)),
-            cfg.map, cfg.tof, geom, s.loop_n_xy, s.loop_n_yaw,
-            s.match_xy_step_m, s.match_yaw_step_deg)
-        pj_corr = jnp.stack([res.x, res.y, jnp.deg2rad(res.yaw_deg)],
-                            axis=-1).reshape(B, NC, 3)
-        zc = se2_relative(pi, pj_corr).reshape(B, n_cand, K, 3)
-        q = res.quality.reshape(B, n_cand, K)
-        ok = near & (q > _F32(s.loop_min_quality))
-        qc = jnp.where(ok, q, -jnp.inf)
-        return jax.vmap(_select_edges)(ic, zc, qc)
-
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
-    return (run_loop_kernel if use_kernel else run_loop_xla)(kfp)
+    return jax.vmap(loop_edges)(kfp, kf_beams, kf_ox, kf_oy)
 
 
 class SlamResult(NamedTuple):
@@ -853,7 +591,7 @@ def _slam_impl(frames: dict, cfg: PipelineConfig, geom: GridGeom,
                upto: int = 99):
     """slam_replay body.  upto truncates the pipeline after a stage
     (0=odo/sched, 1=pass 1, 2=loop edges, 3=pose graph, 4=track) so the
-    per-stage cost is measurable by differencing (tools/prof_slam_tpu)."""
+    per-stage cost is measurable by differencing."""
     kf_every = cfg.slam.kf_every if kf_every is None else kf_every
     gn_iters = cfg.slam.gn_iters if gn_iters is None else gn_iters
     B, T = frames["x_m"].shape
@@ -884,19 +622,15 @@ def _slam_impl(frames: dict, cfg: PipelineConfig, geom: GridGeom,
     def pass1(est, n_iters=None):
         """Pass 1 at pose estimates `est`: scan-matched mapping.  Default
         (feedback-free keyframe match map): a match-free chunk scan
-        builds the snapshot grids — resident-kernel launches on TPU, XLA
-        window updates elsewhere — then every keyframe matches in one
+        builds the snapshot grids, then every keyframe matches in one
         flat batch (_map_pass_nofb).  The feedback formulation (match
-        corrections land on the match map) keeps the keyframe-chunked
-        TPU path / sequential scan pair.  n_iters: per-round match
-        iteration override (SlamConfig.match_iters_later)."""
+        corrections land on the match map) runs the sequential scan.
+        n_iters: per-round match iteration override
+        (SlamConfig.match_iters_later)."""
         if cfg.slam.match_map_kf_only and not cfg.slam.match_feedback:
             _, matched = _map_pass_nofb(beams, est, cfg, geom, kf_every,
                                         sched, grid0=grid0,
                                         n_iters=n_iters)
-        elif jax.default_backend() == "tpu":
-            _, matched = _map_pass_chunked(beams, est, cfg, geom,
-                                           kf_every, sched, grid0=grid0)
         else:
             _, matched = _map_pass(
                 beams, est, cfg, geom, True, kf_mask, sched, grid0=grid0,
@@ -906,8 +640,8 @@ def _slam_impl(frames: dict, cfg: PipelineConfig, geom: GridGeom,
         return matched
 
     # pass 1b: REAL loop closure — proximity-gated keyframe-to-keyframe
-    # revisit matches (VERDICT round-1: the star to node 0 alone only
-    # weakly corrects genuine revisit/figure-8 drift).  For each
+    # revisit matches (a star to node 0 alone only weakly corrects
+    # genuine revisit/figure-8 drift).  For each
     # keyframe j, the nearest keyframe i at least `loop_min_gap`
     # keyframes older within `loop_r_max_m` becomes a loop candidate;
     # keyframe j's scan is then matched against a fresh local map
@@ -1045,21 +779,8 @@ def _slam_impl(frames: dict, cfg: PipelineConfig, geom: GridGeom,
     if upto == 4:
         return track
 
-    # pass 3: re-raster from the corrected track (no map feedback).  On
-    # TPU the whole pass runs as ONE resident-kernel launch with the
-    # recenter schedule applied in-kernel; elsewhere the sequential scan
-    # replays the same sequence.
-    if jax.default_backend() == "tpu":
-        from micro_quad_slam_tpu.ops.pallas_residentx import (
-            pallas_map_chunk_sched)
-        grids0 = (jnp.zeros((B, geom.prows, geom.pcols), jnp.int8)
-                  if grid0 is None else grid0)
-        grid = pallas_map_chunk_sched(
-            grids0, beams, track[..., 0], track[..., 1],
-            jnp.rad2deg(track[..., 2]), sched["ox"], sched["oy"],
-            sched["do"], sched["rsy"], sched["rsx"], cfg, geom)
-    else:
-        grid, _ = _map_pass(beams, track, cfg, geom, False, kf_mask,
-                            sched, grid0=grid0)
+    # pass 3: re-raster from the corrected track (no map feedback)
+    grid, _ = _map_pass(beams, track, cfg, geom, False, kf_mask, sched,
+                        grid0=grid0)
     origin = (sched["ox"][:, -1], sched["oy"][:, -1])
     return SlamResult(grid, track, odo, kf_idx, kf_nodes, gn_costs, origin)

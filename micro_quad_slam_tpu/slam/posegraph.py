@@ -1,5 +1,5 @@
 """SE(2) pose-graph optimization by Gauss-Newton — batched dense linear
-algebra on the MXU (new capability; BASELINE.json config 4 replaces the
+algebra (new capability; BASELINE.json config 4 replaces the
 reference's dead-reckoning drift with keyframe graph refinement, seeded by
 the keyframe flags the reference already logs, uav_local_nav.c:218-229).
 
@@ -12,8 +12,8 @@ constraints).  Residual of edge (i -> j) with measurement z:
 Gauss-Newton with the first node pinned; the normal equations are built
 densely ([3K, 3K]) and solved by Cholesky (the pinned+damped H is SPD) —
 K is small (keyframes per flight: tens to low hundreds), so the dense
-solve batches beautifully over thousands of flights on the MXU, which is
-exactly the scale this framework targets (vmap over the quad axis).
+solve batches over thousands of flights, which is exactly the scale this
+framework targets (vmap over the quad axis).
 """
 
 from __future__ import annotations
@@ -129,11 +129,9 @@ def gauss_newton(graph: PoseGraph, iters: int = 10,
         rw = r * wmask                                   # weighted residuals
         # Normal equations as DENSE matmuls on the block-sparse Jacobian
         # A [3E, 3K] (A = Si (x) Ji + Sj (x) Jj via the one-hot
-        # selectors): H = (W A)^T A, b = (W A)^T r.  The previous
-        # scatter-add block assembly lowered to per-edge scatters — the
-        # one pattern TPUs dislike — and measured 39 ms of the 191 ms
-        # SLAM pipeline at B=128; the dense A is only [231, 78] at
-        # K=26, so the matmuls are effectively free on the MXU.
+        # selectors): H = (W A)^T A, b = (W A)^T r, instead of a
+        # scatter-add block assembly that lowers to per-edge scatters;
+        # the dense A is only [231, 78] at K=26.
         A = (Si[:, None, :, None] * Ji[:, :, None, :]
              + Sj[:, None, :, None] * Jj[:, :, None, :])  # [E, 3, K, 3]
         A = A.reshape(E * 3, K * 3)

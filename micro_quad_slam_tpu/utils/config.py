@@ -208,7 +208,7 @@ class SlamConfig:
     # IDENTICAL tail error and wall IoU on the fig-8 suite at drifts
     # 1.00/1.06/1.12 for both operating profiles (tools/tune_loop.py
     # A/B; GN converges in <= 5 iterations from odometry-grade guesses),
-    # and the batched Cholesky solve chain is ~15% of SLAM TPU latency.
+    # and each iteration adds a batched Cholesky solve to the chain.
     gn_iters: int = 5
     # correlative matcher lattice around the odometry guess (pass 1)
     match_n_xy: int = 7
@@ -218,13 +218,10 @@ class SlamConfig:
     match_min_quality: float = 3.0  # accept gate: peak-minus-mean per hit
     # Keyframes match against a map SNAPSHOT refreshed every this many
     # keyframe intervals (the classic submap-lag formulation).  >1 lets
-    # the TPU path run one fused kernel launch per snapshot interval
-    # instead of per keyframe — the per-launch overhead and the
-    # match->pack->kernel serialization were ~60% of pass-1 cost — at
-    # the price of matching against a map that lags by up to
-    # (match_chunk_intervals-1) keyframe intervals.  Identical semantics
-    # on the TPU-chunked and sequential paths (bit-equality checked on
-    # TPU by tools/check_slam_tpu.py).
+    # all of an interval's keyframes match in parallel against one
+    # snapshot instead of one after another, at the price of matching
+    # against a map that lags by up to (match_chunk_intervals-1)
+    # keyframe intervals.
     match_chunk_intervals: int = 4
     # Pass 1 builds its match map from KEYFRAME scans only (the classic
     # keyframe-submap formulation).  The pass-1 grid exists solely to
@@ -240,9 +237,8 @@ class SlamConfig:
     # poses (True: the rounds-1-3 feedback formulation — each keyframe's
     # correction lands on the grid later keyframes match against) or at
     # their raw ODOMETRY poses (False: feedback-free).  Feedback-free
-    # cuts the match->kernel->match serial chain that dominated pass-1
-    # latency on TPU (tools/prof_pass1_tpu.py): the snapshot grids are
-    # producible by a kernel-only chunk scan and ALL keyframe matches
+    # cuts the match->update->match serial chain: the snapshot grids are
+    # producible by a match-free chunk scan and ALL keyframe matches
     # then run as one flat batch.  Only meaningful with
     # match_map_kf_only; accuracy A/B lives in tests/test_slam.py
     # (the corrections stay anchored by pass 2's graph, so the fig-8 /
@@ -306,8 +302,7 @@ class SlamConfig:
     # refine rounds in NON-FINAL outer rounds (-1 = same as loop_refine).
     # Round-5 cost work: the early rounds' solves only seed the next
     # round's match-map rebuild, where a coarser solve suffices; the
-    # full refine ladder runs once, on the final round (section profile:
-    # refines were 237 of 452 ms at B=128 — 52% of SLAM latency).
+    # full refine ladder runs once, on the final round.
     loop_refine_early: int = -1
     # GN iterations for refine-round solves (0 = gn_iters).  Refine
     # solves start from the PREVIOUS solution (warm start), so they
@@ -393,13 +388,13 @@ class PipelineConfig:
 
 
 # Profile matching uav_local_nav.c (full system).
-# Round-5 cost restructure (tools/tune_slam_cost.py, measured on v5e at
-# B=128/T=256 with the fig-8 drift suite): full refine ladders in every
-# outer round were redundant — early rounds' solves only seed the next
-# round's match-map rebuild.  One early refine + warm-started 2-iter
-# refine solves + single pass-1 re-match in rounds >= 2 took SLAM from
-# 72.4 K to 110.8 K frames/s while IMPROVING the barred d=1.12 point
-# (2.29 cm/IoU 0.853 -> 2.18 cm/0.864; bars: <= 5 cm, >= 0.85).
+# Cost restructure (tools/tune_slam_cost.py, B=128/T=256 with the fig-8
+# drift suite): full refine ladders in every outer round were redundant —
+# early rounds' solves only seed the next round's match-map rebuild.  One
+# early refine + warm-started 2-iter refine solves + single pass-1
+# re-match in rounds >= 2 cut the work while IMPROVING the barred
+# d=1.12 point (2.29 cm/IoU 0.853 -> 2.18 cm/0.864; bars: <= 5 cm,
+# >= 0.85).
 UL_PROFILE = PipelineConfig(name="ul", slam=SlamConfig(
     loop_refine_early=1, gn_refine_iters=2, match_iters_later=1))
 
@@ -409,7 +404,7 @@ UL_PROFILE = PipelineConfig(name="ul", slam=SlamConfig(
 # graph and exact pass-3 re-raster as the accuracy defaults — only the
 # round-4 accuracy multipliers (slam_outer=3, loop_refine=3,
 # match_iters=2, loop_cand=3, whose value is drift-correction quality
-# at 10-12% flow-gain error, PERFORMANCE.md) are dialed back to the
+# at 10-12% flow-gain error) are dialed back to the
 # single-pass formulation.  match_iters=1 is not even a trade at this
 # operating point: with a single global round the second match
 # iteration's map-rebuild feedback OVERCORRECTS (the same mechanism

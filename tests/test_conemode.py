@@ -97,9 +97,8 @@ def test_cone_vs_exact_divergence_quantified():
     cost (VERDICT round-1 weak item 1).  The divergence is substantial
     on moving trajectories (the dense inverse model marks arc bands
     where the exact update marks single endpoint cells): the pinned
-    floor is occupied-IoU(1-cell tol) >= 0.4 and free-IoU >= 0.7, with
-    the concrete per-flight numbers recorded in PERFORMANCE.md so the
-    production path has a stated fidelity cost."""
+    floor is occupied-IoU(1-cell tol) >= 0.4 and free-IoU >= 0.7, so
+    the production path has a stated fidelity cost."""
     from micro_quad_slam_tpu.replay.mapping import (
         replay_mapping_batched, scanlog_to_arrays)
     from micro_quad_slam_tpu.utils.config import UL_PROFILE
@@ -163,8 +162,8 @@ def test_frontier_decisions_hybrid_vs_exact_pinned():
     cluster at score near-ties, where the reference's own choice flips
     on a single probed cell: the hybrid carve's denser free space (its
     design point) reclassifies between-ray wedge cells.  Behavior-
-    facing consumers (the closed-loop sim) run on EXACT maps — now via
-    the bit-exact pallas_map_step — so these floors pin the documented
+    facing consumers (the closed-loop sim) run on EXACT maps, so these
+    floors pin the documented
     hybrid-map gap against regression rather than asserting parity."""
     frontier_ab = pytest.importorskip("tools.frontier_ab")
     frames = frontier_ab.default_scenarios(T=120)

@@ -1,5 +1,5 @@
 """Golden C-semantics model tests — pin the reference's exact math
-(SURVEY.md §2B) before the TPU kernels are held to it.
+(SURVEY.md §2B) before the device kernels are held to it.
 """
 
 import numpy as np

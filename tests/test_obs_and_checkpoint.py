@@ -109,7 +109,7 @@ def test_checkpoint_latest_picks_max(tmp_path):
 def test_replay_checkpoint_resume_bit_exact(tmp_path):
     """Checkpoint-restart of a long replay (SURVEY.md §5.4): replaying
     two halves with a save/restore roundtrip in between bit-matches an
-    unbroken replay, for both the XLA and the resident kernel."""
+    unbroken replay, for both the exact and the hybrid kernel."""
     import numpy as np
     from micro_quad_slam_tpu.replay.mapping import (
         replay_mapping_batched, scanlog_to_arrays)
@@ -125,7 +125,7 @@ def test_replay_checkpoint_resume_bit_exact(tmp_path):
     h1 = {k: v[:, :10] for k, v in full.items()}
     h2 = {k: v[:, 10:] for k, v in full.items()}
 
-    for kernel in ("xla", "resident"):
+    for kernel in ("xla", "hybrid"):
         st_full, _ = replay_mapping_batched(full, UL_PROFILE, kernel=kernel)
         st1, _ = replay_mapping_batched(h1, UL_PROFILE, kernel=kernel)
         path = save_checkpoint(str(tmp_path / f"ck_{kernel}"), st1, step=10)

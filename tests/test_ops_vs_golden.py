@@ -1,4 +1,4 @@
-"""TPU kernel vs golden C-semantics model: exact-equality tests.
+"""Device kernels vs golden C-semantics model: exact-equality tests.
 
 Every op in micro_quad_slam_tpu.ops must reproduce the golden model
 bit-for-bit (int8 grids) / to float32 exactness (beams, filters).
@@ -211,7 +211,7 @@ def test_frontier_matches_golden():
 
 @pytest.mark.slow
 def test_mxu_kernel_matches_xla():
-    """MXU window-IO variant (contiguous row slabs + one-hot bf16 matmul
+    """Matmul window-IO variant (contiguous row slabs + one-hot bf16 matmul
     column select) must be bit-identical to the XLA path."""
     from micro_quad_slam_tpu.ops.raycast import apply_scan_to_grid_mxu
 

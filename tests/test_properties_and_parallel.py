@@ -107,9 +107,9 @@ def test_sharded_replay_matches_unsharded():
     assert len(s_state.grid.sharding.device_set) == 8
 
 
-def test_sharded_resident_kernel_matches_unsharded():
-    """The pallas resident kernel under shard_map: each device runs the
-    whole-replay kernel over its local batch shard."""
+def test_sharded_hybrid_matches_unsharded():
+    """The hybrid production kernel with the batch sharded over the
+    mesh: bit-identical grids and gates to the unsharded hybrid replay."""
     assert len(jax.devices()) >= 8, "conftest must provide 8 CPU devices"
     logs = [synth_room_scanlog(n_frames=10, seed=40 + s, noise_mm=4.0)
             for s in range(8)]
@@ -118,9 +118,10 @@ def test_sharded_resident_kernel_matches_unsharded():
 
     mesh = make_mesh(8)
     s_state, s_outs, metrics = replay_mapping_sharded(
-        batched, UL_PROFILE, mesh, kernel="resident")
+        batched, UL_PROFILE, mesh, kernel="hybrid")
     u_state, u_outs = replay_mapping_batched(
-        {k: jnp.asarray(v) for k, v in batched.items()}, UL_PROFILE)
+        {k: jnp.asarray(v) for k, v in batched.items()}, UL_PROFILE,
+        kernel="hybrid")
 
     np.testing.assert_array_equal(np.asarray(s_state.grid),
                                   np.asarray(u_state.grid))
@@ -159,8 +160,8 @@ def test_sharded_fusion_matches_unsharded():
 
 @pytest.mark.slow
 def test_sharded_slam_matches_unsharded():
-    """Full SLAM pipeline under shard_map (pallas re-raster included):
-    bit-identical maps, tracks, and GN costs per flight."""
+    """Full SLAM pipeline under shard_map: bit-identical maps, tracks,
+    and GN costs per flight."""
     from micro_quad_slam_tpu.parallel import slam_replay_sharded
     from micro_quad_slam_tpu.replay.fusion import fusion_arrays
     from micro_quad_slam_tpu.slam.pipeline import slam_replay

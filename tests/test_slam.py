@@ -190,105 +190,6 @@ def test_score_lattice_matches_bruteforce():
         np.testing.assert_array_equal(np.asarray(got), want, err_msg=f"trial {trial}")
 
 
-def test_pallas_match_lattice_matches_xla():
-    """The pallas lattice-matcher kernel (ops/pallas_scanmatch.py;
-    interpret mode on CPU, on-hardware twin in tools/check_all_tpu.py)
-    must be BIT-equal to vmapped match_window over the [96, 128]
-    windows its slabs cover — same one-hot masks, f32-exact integer
-    sums in either accumulation order."""
-    from micro_quad_slam_tpu.ops.pallas_residentx import _snap_align
-    from micro_quad_slam_tpu.ops.scanmatch import (match_slabs,
-                                                   match_window,
-                                                   window_origin)
-
-    cfg, tof = UL_PROFILE.map, UL_PROFILE.tof
-    rng = np.random.default_rng(23)
-    N = 24
-    padded = rng.integers(-80, 81, (N, GEOM.prows, GEOM.pcols)).astype(
-        np.int8)
-    ox = np.zeros(N, np.float32)
-    oy = np.zeros(N, np.float32)
-    # poses: mostly interior, some near the grid edge so out-of-grid
-    # masking and window clipping fire
-    xg = rng.uniform(-8, 8, N).astype(np.float32)
-    xg[-6:] = rng.uniform(21.0, 24.5, 6).astype(np.float32)
-    yg = rng.uniform(-8, 8, N).astype(np.float32)
-    yg[-3:] = rng.uniform(-24.5, -21.0, 3).astype(np.float32)
-    yawg = rng.uniform(-180, 180, N).astype(np.float32)
-    beams = rng.uniform(0.1, 4.0, (N, 4, 8)).astype(np.float32)
-    beams[rng.random((N, 4, 8)) < 0.1] = np.nan
-
-    from micro_quad_slam_tpu.ops.raycast import world_to_cell
-    pcx, pcy = world_to_cell(jnp.asarray(xg), jnp.asarray(yg),
-                             jnp.asarray(ox), jnp.asarray(oy),
-                             cfg.res_m, cfg.width // 2, cfg.height // 2)
-    wy0, wx0 = window_origin(pcx, pcy, GEOM)
-    r0s, c0s = _snap_align(wy0, wx0, GEOM)
-    sr, sc = GEOM.win_rows + 8, 2 * GEOM.win_cols
-    slabs = np.stack([padded[i, int(r0s[i]):int(r0s[i]) + sr,
-                             int(c0s[i]):int(c0s[i]) + sc]
-                      for i in range(N)])
-    wins = np.stack([padded[i, int(wy0[i]):int(wy0[i]) + GEOM.win_rows,
-                            int(wx0[i]):int(wx0[i]) + GEOM.win_cols]
-                     for i in range(N)])
-
-    want = jax.jit(jax.vmap(
-        lambda w, y0, x0, bm, xi, yi, wi, oxi, oyi: match_window(
-            w, y0, x0, bm, xi, yi, wi, oxi, oyi, cfg, tof, GEOM)
-    ))(jnp.asarray(wins), wy0, wx0, jnp.asarray(beams),
-       jnp.asarray(xg), jnp.asarray(yg), jnp.asarray(yawg),
-       jnp.asarray(ox), jnp.asarray(oy))
-    got = jax.jit(lambda *a: match_slabs(*a, cfg, tof, GEOM))(
-        jnp.asarray(slabs), r0s, c0s, jnp.asarray(beams),
-        jnp.asarray(xg), jnp.asarray(yg), jnp.asarray(yawg),
-        jnp.asarray(ox), jnp.asarray(oy))
-    for a, b, name in zip(got, want, got._fields):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
-                                      err_msg=name)
-
-
-@pytest.mark.slow
-def test_loop_kernel_matches_xla():
-    """The TPU loop-closure path (one flat pallas lattice-matcher batch
-    over all B*n_cand*K candidate matches, slam/pipeline.py::_loop_stage
-    run_loop_kernel) must produce EXACTLY the edges of the vmapped XLA
-    match_window path: candidate selection is shared, the matcher
-    scores are bit-equal, and everything downstream is deterministic
-    arithmetic on those scores."""
-    import functools
-    from micro_quad_slam_tpu.slam.pipeline import _loop_stage
-
-    rng = np.random.default_rng(11)
-    B, K = 2, 10
-    # a loopy track: revisits within loop_r_max_m of older keyframes,
-    # all gaps >= loop_min_gap covered by the candidate rounds
-    th = np.linspace(0, 2 * np.pi, K, endpoint=False)
-    kfp = np.stack([0.8 * np.cos(th), 0.8 * np.sin(th), th], -1)
-    kfp = (kfp[None] + rng.normal(0, 0.05, (B, K, 3))).astype(np.float32)
-    beams = rng.uniform(0.1, 4.0, (B, K, 4, 8)).astype(np.float32)
-    beams[rng.random((B, K, 4, 8)) < 0.1] = np.nan
-    ox = np.zeros((B, K), np.float32)
-    oy = np.zeros((B, K), np.float32)
-
-    run = lambda uk: jax.jit(functools.partial(
-        _loop_stage, cfg=UL_PROFILE, geom=GEOM, use_kernel=uk))(
-            jnp.asarray(kfp), jnp.asarray(beams), jnp.asarray(ox),
-            jnp.asarray(oy))
-    want = run(False)
-    got = run(True)
-    # candidate indices, gating and quality are BIT-equal (the matcher
-    # scores are — test_pallas_match_lattice_matches_xla — and the edge
-    # selection is deterministic arithmetic on them); the measured z may
-    # differ in the last ulp of theta only, where XLA lowers the
-    # deg<->rad trig chain differently in the vmapped-scalar vs
-    # flat-batch contexts
-    for i, name in ((0, "ij"), (2, "ok"), (3, "q")):
-        np.testing.assert_array_equal(np.asarray(got[i]),
-                                      np.asarray(want[i]), err_msg=name)
-    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(want[1]),
-                               rtol=0, atol=1e-6, err_msg="z")
-
-
 def test_scanmatch_recovers_translation():
     offset = (0.12, -0.08)
     padded, beams = _wall_grid_and_beams(offset)
@@ -587,93 +488,6 @@ def test_slam_long_excursion_recenters_and_map_survives():
     g_off = np.asarray(logical_grid(res_off.grid))[0]
     assert float(res_off.origin[0][0]) < 1.0   # origin never moved
     assert occ_near_east_wall(g_off, float(res_off.origin[0][0])) == 0
-
-
-@pytest.mark.slow
-def test_slam_chunked_kf_only_matches_sequential():
-    """The TPU chunked pass 1 (keyframe-only match map, recenter
-    schedule COMPOSED per keyframe interval) is bit-equal to the
-    sequential scan with per-frame recenters and a keyframe update
-    mask — zero-fill translations compose exactly, so rolling each
-    frame and rolling the interval sum reach identical grids.  A flow
-    excursion on one flight fires real recenters mid-stream so the
-    composed windows, the chunk-start outside roll, and the post-scan
-    tail roll are all exercised (interpret-mode kernel on CPU; the
-    on-hardware twin is tools/check_all_tpu.py)."""
-    from micro_quad_slam_tpu.ops.beams import extract_beams
-    from micro_quad_slam_tpu.slam.pipeline import (
-        _ekf_track, _map_pass, _map_pass_chunked, _origin_schedule)
-
-    cfg = UL_PROFILE
-    assert cfg.slam.match_map_kf_only
-    T, kf_every = 64, 8
-    logs = [synth_room_scanlog(n_frames=T, seed=s, path="circle",
-                               noise_mm=6.0, with_flow=True)
-            for s in range(2)]
-    frs = [{**scanlog_to_arrays(lg), **fusion_arrays(lg)} for lg in logs]
-    b4 = {k: np.stack([f[k] for f in frs] * 2) for k in frs[0]}
-    b4["of_rate_x"][3] = b4["of_rate_x"][3] + F32(-20.0)
-    bj = {k: jnp.asarray(v) for k, v in b4.items()}
-    beams, _ = extract_beams(bj["grid_mm"], cfg.tof)
-    odo = _ekf_track(bj, cfg)
-    sched = _origin_schedule(odo, cfg)
-    assert int(np.asarray(sched["do"]).sum()) >= 1  # recenters fired
-    n_iv = cfg.slam.match_chunk_intervals
-    kf_mask = (jnp.arange(T) % kf_every) == 0
-    snap_mask = (jnp.arange(T) % (kf_every * n_iv)) == 0
-    g_seq, m_seq = _map_pass(beams, odo, cfg, GEOM, True, kf_mask, sched,
-                             snap_mask_t=snap_mask, update_mask_t=kf_mask)
-    g_chk, m_chk = _map_pass_chunked(beams, odo, cfg, GEOM, kf_every,
-                                     sched)
-    np.testing.assert_array_equal(np.asarray(g_chk), np.asarray(g_seq))
-    np.testing.assert_array_equal(np.asarray(m_chk), np.asarray(m_seq))
-
-
-@pytest.mark.slow
-def test_slam_nofb_kernel_matches_xla():
-    """The feedback-free pass 1 (_map_pass_nofb — the default since
-    SlamConfig.match_feedback=False) must produce identical grids and
-    matched poses whether the snapshot chunk scan runs through the
-    resident kernel (interpret-mode pallas on CPU; the on-hardware twin
-    is tools/check_all_tpu.py) or the XLA window updates.  The same
-    flow-excursion flight as the chunked-parity test fires real
-    recenters so the composed slot windows, the outside chunk-start
-    roll, and the post-scan tail roll are all exercised."""
-    import dataclasses
-
-    from micro_quad_slam_tpu.ops.beams import extract_beams
-    from micro_quad_slam_tpu.slam.pipeline import (
-        _ekf_track, _map_pass_nofb, _origin_schedule)
-
-    # lowered accept gate: chunk-1 keyframes match a non-empty snapshot
-    # with small positive quality, so LIVE corrections deterministically
-    # flow through the placement path on both sides of the parity check
-    # (the production gate can reject every match on this short flight,
-    # which would leave the matched==odo identity untested)
-    cfg = UL_PROFILE.replace(
-        slam=dataclasses.replace(UL_PROFILE.slam, match_min_quality=0.05))
-    assert cfg.slam.match_map_kf_only and not cfg.slam.match_feedback
-    T, kf_every = 64, 8
-    logs = [synth_room_scanlog(n_frames=T, seed=s, path="circle",
-                               noise_mm=6.0, with_flow=True)
-            for s in range(2)]
-    frs = [{**scanlog_to_arrays(lg), **fusion_arrays(lg)} for lg in logs]
-    b4 = {k: np.stack([f[k] for f in frs] * 2) for k in frs[0]}
-    b4["of_rate_x"][3] = b4["of_rate_x"][3] + F32(-20.0)
-    bj = {k: jnp.asarray(v) for k, v in b4.items()}
-    beams, _ = extract_beams(bj["grid_mm"], cfg.tof)
-    odo = _ekf_track(bj, cfg)
-    sched = _origin_schedule(odo, cfg)
-    assert int(np.asarray(sched["do"]).sum()) >= 1  # recenters fired
-    g_x, m_x = _map_pass_nofb(beams, odo, cfg, GEOM, kf_every, sched,
-                              use_kernel=False)
-    g_k, m_k = _map_pass_nofb(beams, odo, cfg, GEOM, kf_every, sched,
-                              use_kernel=True)
-    np.testing.assert_array_equal(np.asarray(g_k), np.asarray(g_x))
-    np.testing.assert_array_equal(np.asarray(m_k), np.asarray(m_x))
-    # real corrections fired (matched poses differ from raw odometry at
-    # some keyframe), so the parity above covers live matches
-    assert not np.array_equal(np.asarray(m_x), np.asarray(odo))
 
 
 @pytest.mark.slow
